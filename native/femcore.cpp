@@ -1,14 +1,14 @@
-// femcore: native host-runtime core for fembrain_tpu.
+// femcore: native host-runtime core for fembrain.
 //
 // The reference implements its host runtime in C++ (VolMesh topology DB,
 // src/deformable/VolMesh.cpp; haptic ring propagation,
-// src/deformable/Deformable.cpp:634-706). The TPU compute path lives in
-// JAX/XLA; this library provides the host-side topology kernels that sit
+// src/deformable/Deformable.cpp:634-706). The device compute path lives
+// in JAX/XLA; this library provides the host-side topology kernels that sit
 // between frames (adjacency construction, BFS ring force propagation,
 // unique-edge extraction with canonical per-cell ordering, invariant
 // checks) at native speed for large meshes.
 //
-// C ABI only — consumed via ctypes (fembrain_tpu/native/__init__.py).
+// C ABI only — consumed via ctypes (fembrain/native/__init__.py).
 #include <algorithm>
 #include <cstdint>
 #include <cstring>

@@ -3,13 +3,14 @@ scene-graph draw/timestep fan-out (reference main.cpp startup + GLUT loop)."""
 import numpy as np
 import pytest
 
-from fembrain_tpu.app import SimulationApp
+from fembrain.app import SimulationApp
+from fembrain.assets import sim_path
 
 
 @pytest.fixture(scope="module")
 def app():
     a = SimulationApp(
-        "/root/reference/data/models/sphere.sim", cellsize=0.3
+        sim_path("sphere"), cellsize=0.3
     )
     yield a
     a.close()
@@ -43,17 +44,17 @@ def test_app_draw_batch_follows_deformation(app):
 def test_app_cli_checkpoint_resume(tmp_path):
     """--checkpoint-every N writes a FEM state pytree that --resume
     restores (checkpoint-restart around the sim loop, SURVEY 5.3/5.4)."""
-    from fembrain_tpu.app import main
+    from fembrain.app import main
 
     ck = str(tmp_path / "state.msgpack")
-    rc = main(["--file", "/root/reference/data/models/sphere.sim",
+    rc = main(["--file", str(sim_path("sphere")),
                "--cellsize", "0.35", "--frames", "2",
                "--checkpoint-every", "1", "--checkpoint", ck])
     assert rc == 0
     import os
 
     assert os.path.exists(ck) or os.path.exists(ck + ".npz")
-    rc = main(["--file", "/root/reference/data/models/sphere.sim",
+    rc = main(["--file", str(sim_path("sphere")),
                "--cellsize", "0.35", "--frames", "1",
                "--resume", "--checkpoint", ck])
     assert rc == 0

@@ -9,13 +9,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.mass_spring import make_dumbbell, step_mass_spring
-from fembrain_tpu.ops.particles import init_particles, step_particles
-from fembrain_tpu.utils.checkpoint import load_pytree, save_pytree
-from fembrain_tpu.utils.config import SimConfig
-from fembrain_tpu.utils.metrics import MetricsLogger, Record
-from fembrain_tpu.utils.profiler import Profiler
+from fembrain.assets import sim_path
+from fembrain.fem.integrator import FemState
+from fembrain.fem.mass_spring import make_dumbbell, step_mass_spring
+from fembrain.ops.particles import init_particles, step_particles
+from fembrain.utils.checkpoint import load_pytree, save_pytree
+from fembrain.utils.config import SimConfig
+from fembrain.utils.metrics import MetricsLogger, Record
+from fembrain.utils.profiler import Profiler
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -58,7 +59,7 @@ def test_mass_spring_oscillates_and_damps():
 
 
 def test_sim_config_roundtrip(tmp_path):
-    cfg = SimConfig.load("/root/reference/data/models/tumor.sim")
+    cfg = SimConfig.load(sim_path("tumor"))
     assert cfg.input_file == "blobtree/tumor.blob"
     assert cfg.cellsize == pytest.approx(0.19)
     assert cfg.fixed_vertices == [7, 7, 7, 3, 6]

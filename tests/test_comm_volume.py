@@ -23,11 +23,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem import grid_sharded as gsh
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.fem import grid_sharded as gsh
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
 
-BLOB_DIR = "/root/reference/data/models/blobtree"
+BLOB_DIR = str(MODELS_DIR / "blobtree")
 D = 4
 
 

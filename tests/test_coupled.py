@@ -14,20 +14,21 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.deformed import (
+from fembrain.assets import blob_path
+from fembrain.blob.reader import load_blob
+from fembrain.fem.integrator import FemState
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.deformed import (
     coupled_step,
     displacement_grid,
     render_deformed,
     trace_deformed,
 )
-from fembrain_tpu.render.sphere_trace import TraceParams, trace
+from fembrain.render.sphere_trace import TraceParams, trace
 
-SPHERE = "/root/reference/data/models/blobtree/sphere.blob"
+SPHERE = blob_path("sphere")
 
 
 @pytest.fixture(scope="module")

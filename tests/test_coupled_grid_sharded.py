@@ -10,22 +10,23 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem import grid_fem as gfm
-from fembrain_tpu.fem import grid_sharded as gsh
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
-from fembrain_tpu.mesh.samples import bottom_nodes_per_component
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.coupled_sharded import (
+from fembrain.assets import blob_path
+from fembrain.blob.reader import load_blob
+from fembrain.fem import grid_fem as gfm
+from fembrain.fem import grid_sharded as gsh
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.mesh.samples import bottom_nodes_per_component
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.coupled_sharded import (
     build_coupled_grid_sharded,
     coupled_step_grid_sharded,
 )
-from fembrain_tpu.render.deformed import (
+from fembrain.render.deformed import (
     build_disp_interp,
     coupled_step_grid_fast,
 )
 
-SPHERE = "/root/reference/data/models/blobtree/sphere.blob"
+SPHERE = blob_path("sphere")
 
 
 @pytest.fixture(scope="module")

@@ -8,22 +8,23 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.partitioned import (
+from fembrain.assets import blob_path
+from fembrain.blob.reader import load_blob
+from fembrain.fem.integrator import FemState
+from fembrain.fem.partitioned import (
     NODE_AXIS,
     from_partition_order,
     to_partition_order,
 )
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.coupled_sharded import (
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.coupled_sharded import (
     build_coupled_sharded,
     coupled_step_sharded,
 )
-from fembrain_tpu.render.deformed import build_disp_interp, coupled_step_fast
+from fembrain.render.deformed import build_disp_interp, coupled_step_fast
 
-SPHERE = "/root/reference/data/models/blobtree/sphere.blob"
+SPHERE = blob_path("sphere")
 N_DEV = 8
 
 
@@ -37,7 +38,7 @@ def setup():
     satisfy the 1-D halo invariant at 8 parts at test scale — so the
     sharded-vs-single equality property is checked on a bar spanning the
     sphere."""
-    from fembrain_tpu.mesh import samples
+    from fembrain.mesh import samples
 
     scene = load_blob(SPHERE).pack()
     nodes, tets = samples.truth_cube(24, 2, 2, 0.08)
@@ -97,21 +98,28 @@ def test_sharded_coupled_equals_single_device(setup):
 
 
 def test_sharded_coupled_pallas_kernel_path(setup):
-    """The same sharded step through the Pallas kernel (interpret mode):
-    the production multi-device graph CI actually executes."""
+    """The same sharded step through the trace kernel (interpret mode) on
+    the production Wendland interpolant: the multi-device kernel graph CI
+    executes. The pull-back refreshes at every eval and the XLA inverse is
+    converged, so both paths trace the same field (test_deformed_fast)."""
     scene, fem, cs, interp, dev_mesh, ro, rd = setup
+    nodes = np.asarray(fem.rest)
+    cs = build_coupled_sharded(nodes, np.asarray(fem.tets), N_DEV,
+                               fixed=np.asarray(fem.fixed), n_centers=96,
+                               kernel="wendland")
     f = jnp.zeros((fem.n_nodes, 3)).at[:, 1].set(-500.0 * fem.mass)
     pm = cs.pm
     z = to_partition_order(pm, jnp.zeros((pm.n_nodes, 3)))
     fp = to_partition_order(pm, f)
+    kw = dict(fp_iters=6, k_refresh=1)
     t1, h1, _, _ = coupled_step_sharded(
-        scene, cs, dev_mesh, z, z, z, fp, ro, rd, use_pallas=False
+        scene, cs, dev_mesh, z, z, z, fp, ro, rd, use_pallas=False, **kw
     )
     t2, h2, _, _ = coupled_step_sharded(
-        scene, cs, dev_mesh, z, z, z, fp, ro, rd,
-        use_pallas=True, interpret=True,
+        scene, cs, dev_mesh, z, z, z, fp, ro, rd, interpret=True, **kw
     )
     h1, h2 = np.asarray(h1), np.asarray(h2)
+    assert h1.sum() > 20
     assert (h1 == h2).mean() > 0.99, (h1 != h2).sum()
     m = h1 & h2
     diff = np.abs(np.asarray(t1)[m] - np.asarray(t2)[m])

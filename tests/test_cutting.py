@@ -4,15 +4,16 @@ TestVolMesh invariants run after every cut, CuttableMesh.cpp:478-481)."""
 import numpy as np
 import pytest
 
-from fembrain_tpu.fem.avatars import AvatarProbe, AvatarScalpel
-from fembrain_tpu.fem.cutting import (
+from fembrain.assets import MODELS_DIR
+from fembrain.fem.avatars import AvatarProbe, AvatarScalpel
+from fembrain.fem.cutting import (
     CutError,
     CuttableMesh,
     segment_quad_intersect,
     subdivide_cell,
 )
-from fembrain_tpu.mesh import samples
-from fembrain_tpu.mesh.volmesh import CELL_EDGES, VolMesh
+from fembrain.mesh import samples
+from fembrain.mesh.volmesh import CELL_EDGES, VolMesh
 
 
 def test_volmesh_construction_and_invariants():
@@ -197,15 +198,15 @@ def test_cut_polygonized_scene_end_to_end():
 
     import jax.numpy as jnp
 
-    from fembrain_tpu.blob.reader import load_blob
-    from fembrain_tpu.fem import integrator as integ
-    from fembrain_tpu.fem.cutting import CuttableMesh, batched_edge_quad_hits
-    from fembrain_tpu.fem.integrator import FemState
-    from fembrain_tpu.fem.tetmesh import build_fem_mesh
-    from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
+    from fembrain.blob.reader import load_blob
+    from fembrain.fem import integrator as integ
+    from fembrain.fem.cutting import CuttableMesh, batched_edge_quad_hits
+    from fembrain.fem.integrator import FemState
+    from fembrain.fem.tetmesh import build_fem_mesh
+    from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
 
     scene = load_blob(
-        "/root/reference/data/models/blobtree/sphere.blob"
+        str(MODELS_DIR / "blobtree" / "sphere.blob")
     ).pack()
     grid = grid_for_scene(scene, 0.2)
     tm = extract_tet_mesh(
@@ -262,7 +263,7 @@ def test_cut_node_snapping_drops_near_endpoint_cuts():
     CuttableMesh.cpp:214-281): a sweep plane passing within roi of a
     node snaps that node and drops its incident cut edges instead of
     producing sliver splits."""
-    from fembrain_tpu.fem.cutting import snap_cut_nodes
+    from fembrain.fem.cutting import snap_cut_nodes
 
     nodes, tets = samples.one_tetra()
     cm = CuttableMesh(nodes, tets)

@@ -1,11 +1,10 @@
 """Fast coupled path: RBF-interpolated displacement field.
 
-The trilinear grid embedding needs ~32 gathers per field evaluation —
-XLA serializes gathers on TPU, so the exact path is seconds per frame.
-The fast path interpolates the FEM displacement with a biharmonic RBF
-over a static farthest-point node subset (the reference's FastRBF role,
+The trilinear grid embedding needs ~32 gathers per field evaluation.
+The fast path interpolates the FEM displacement with an RBF over a static
+farthest-point node subset (the reference's FastRBF role,
 src/implicit/RBF.h:51-136): per-frame weights are one matmul (linear in
-the FEM state q), evaluation is dense MXU math. These tests pin the
+the FEM state q), evaluation is gather-free. These tests pin the
 interpolant to the exact embedding and the traced hits/gradients to the
 exact path.
 """
@@ -17,12 +16,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.deformed import (
+from fembrain.assets import blob_path
+from fembrain.blob.reader import load_blob
+from fembrain.fem.integrator import FemState
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.deformed import (
     build_disp_interp,
     coupled_step,
     coupled_step_fast,
@@ -34,9 +34,9 @@ from fembrain_tpu.render.deformed import (
     trace_deformed,
     trace_deformed_rbf,
 )
-from fembrain_tpu.render.sphere_trace import trace
+from fembrain.render.sphere_trace import trace
 
-SPHERE = "/root/reference/data/models/blobtree/sphere.blob"
+SPHERE = blob_path("sphere")
 
 
 @pytest.fixture(scope="module")
@@ -160,20 +160,39 @@ def test_fast_gradients_match_finite_differences(setup):
     assert abs(gE - fd) / max(abs(fd), 1e-6) < 0.05, (gE, fd)
 
 
-def test_pallas_deformed_kernel_matches_xla(setup):
-    """ADVICE r2 (medium): the in-kernel RBF pull-back march
-    (trace_deformed_rbf_fast -> pallas_trace._pull_back_rows) must pin to
-    the XLA deformed tracer in interpret mode, so CPU CI executes the
-    production kernel path."""
-    from fembrain_tpu.render.deformed import trace_deformed_rbf_fast
-
+@pytest.fixture(scope="module")
+def wendland(setup):
+    """The production (Wendland) interpolant on the same mesh, with the
+    smooth sag's weights."""
     scene, grid, g2n, fem, interp, ro, rd = setup
     nodes = np.asarray(fem.rest)
-    u = _smooth_sag(fem, nodes)
-    w = disp_weights(interp, u)
-    t1, h1 = trace_deformed_rbf(scene, interp, w, ro, rd)
+    winterp = build_disp_interp(nodes, n_centers=96, kernel="wendland",
+                                sigma_fill=2.5)
+    return winterp, disp_weights(winterp, _smooth_sag(fem, nodes))
+
+
+# Kernel-vs-XLA pins below refresh the pull-back at every eval
+# (k_refresh=1) and converge the XLA inverse (FP_CONVERGED iterations):
+# the kernel's warm-started pull-back then meets the XLA tracer's to
+# march accuracy. The production refresh schedule, whose linear rest-point
+# model drifts by up to a march step, is pinned in test_wendland.
+FP_CONVERGED = 6
+
+
+def test_pallas_deformed_kernel_matches_xla(setup, wendland):
+    """The in-kernel pull-back march (trace_deformed_rbf_fast on the
+    kernel path) pins to the XLA deformed tracer in interpret mode, so CPU
+    CI executes the production kernel path. With need_grads the kernel's
+    root gets the implicit-hit correction against the XLA field."""
+    from fembrain.render.deformed import trace_deformed_rbf_fast
+
+    scene, grid, g2n, fem, interp, ro, rd = setup
+    winterp, w = wendland
+    t1, h1 = trace_deformed_rbf(scene, winterp, w, ro, rd,
+                                fp_iters=FP_CONVERGED)
     t2, h2 = trace_deformed_rbf_fast(
-        scene, interp, w, ro, rd, interpret=True
+        scene, winterp, w, ro, rd, interpret=True, k_refresh=1,
+        fp_iters=FP_CONVERGED,
     )
     h1, h2 = np.asarray(h1), np.asarray(h2)
     assert (h1 == h2).mean() > 0.995, (h1 != h2).sum()
@@ -182,18 +201,15 @@ def test_pallas_deformed_kernel_matches_xla(setup):
     assert diff.max() < 1e-3, diff.max()
 
 
-def test_pallas_deformed_image_variant_matches(setup):
-    from fembrain_tpu.render.deformed import trace_deformed_rbf_fast
+def test_pallas_deformed_image_variant_matches(setup, wendland):
+    from fembrain.render.deformed import trace_deformed_rbf_fast
 
     scene, grid, g2n, fem, interp, ro, rd = setup
-    nodes = np.asarray(fem.rest)
-    u = _smooth_sag(fem, nodes)
-    w = disp_weights(interp, u)
-    t1, h1 = trace_deformed_rbf_fast(
-        scene, interp, w, ro, rd, interpret=True
-    )
+    winterp, w = wendland
+    kw = dict(interpret=True, k_refresh=1, fp_iters=FP_CONVERGED)
+    t1, h1 = trace_deformed_rbf_fast(scene, winterp, w, ro, rd, **kw)
     t2, h2 = trace_deformed_rbf_fast(
-        scene, interp, w, ro, rd, interpret=True, image_hw=(18, 24)
+        scene, winterp, w, ro, rd, image_hw=(18, 24), **kw
     )
     np.testing.assert_array_equal(np.asarray(h1), np.asarray(h2))
     m = np.asarray(h1) & np.asarray(h2)
@@ -204,34 +220,58 @@ def test_pallas_deformed_image_variant_matches(setup):
     )
 
 
-def test_pallas_deformed_gradients_match_xla(setup):
+def test_pallas_deformed_gradients_match_xla(setup, wendland):
     """Gradients of the kernel path (implicit-diff correction outside the
     kernel) equal the XLA deformed tracer's gradients."""
-    from fembrain_tpu.render.deformed import trace_deformed_rbf_fast
+    from fembrain.render.deformed import trace_deformed_rbf_fast
 
     scene, grid, g2n, fem, interp, ro, rd = setup
-    nodes = np.asarray(fem.rest)
-    u = _smooth_sag(fem, nodes)
-    w0 = disp_weights(interp, u)
-    _, h0 = trace_deformed_rbf(scene, interp, w0, ro, rd)
+    winterp, w0 = wendland
+    _, h0 = trace_deformed_rbf(scene, winterp, w0, ro, rd,
+                               fp_iters=FP_CONVERGED)
     h0 = jax.lax.stop_gradient(h0)
 
     def loss_fast(w):
         t, _ = trace_deformed_rbf_fast(
-            scene, interp, w, ro, rd, interpret=True
+            scene, winterp, w, ro, rd, interpret=True, k_refresh=1,
+            fp_iters=FP_CONVERGED,
         )
         return jnp.sum(jnp.where(h0, t, 0.0))
 
     def loss_xla(w):
-        t, _ = trace_deformed_rbf(scene, interp, w, ro, rd)
+        t, _ = trace_deformed_rbf(scene, winterp, w, ro, rd,
+                                  fp_iters=FP_CONVERGED)
         return jnp.sum(jnp.where(h0, t, 0.0))
 
     g1 = jax.grad(loss_fast)(w0)
     g2 = jax.grad(loss_xla)(w0)
     scale = float(jnp.abs(g2).max())
+    assert scale > 0.0
     np.testing.assert_allclose(
         np.asarray(g1), np.asarray(g2), atol=2e-3 * max(scale, 1.0)
     )
+
+
+def test_kernel_refuses_biharmonic(setup):
+    """The kernel traces only the Wendland interpolant: asking it for a
+    biharmonic one raises, and the default path takes the XLA tracer."""
+    from fembrain.render.deformed import trace_deformed_rbf_fast
+    from fembrain.render.pallas_trace import trace_pallas
+
+    scene, grid, g2n, fem, interp, ro, rd = setup
+    assert interp.kind == "biharmonic"
+    w = disp_weights(interp, _smooth_sag(fem, np.asarray(fem.rest)))
+    with pytest.raises(ValueError, match="biharmonic"):
+        trace_deformed_rbf_fast(scene, interp, w, ro, rd, interpret=True,
+                                use_pallas=True)
+    with pytest.raises(TypeError, match="WendlandDisp"):
+        trace_pallas(scene, ro, rd, interpret=True,
+                     disp=(interp.centers, w, 0.9, 0.05, 0.1, 2))
+    t1, h1 = trace_deformed_rbf(scene, interp, w, ro, rd)
+    t2, h2 = trace_deformed_rbf_fast(scene, interp, w, ro, rd,
+                                     interpret=True)
+    np.testing.assert_array_equal(np.asarray(h1), np.asarray(h2))
+    np.testing.assert_array_equal(np.asarray(t1), np.asarray(t2))
 
 
 def test_forward_solver_matches_differentiable(setup):
@@ -262,7 +302,7 @@ def test_forward_solver_matches_differentiable(setup):
 def test_max_disp_bound_covers_actual_displacements(setup):
     """The per-frame telemetry bound (ADVICE r2 #4) upper-bounds the RBF
     displacement magnitude everywhere on the mesh node cloud."""
-    from fembrain_tpu.render.deformed import max_disp_bound
+    from fembrain.render.deformed import max_disp_bound
 
     scene, grid, g2n, fem, interp, ro, rd = setup
     nodes = np.asarray(fem.rest)

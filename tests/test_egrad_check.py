@@ -1,7 +1,7 @@
 """The coupled E-gradient bench check (tools/egrad_check.py) stays green.
 
-Runs the f64 subprocess check bench.py invokes on TPU — one process-global
-x64 flag means it must be a subprocess here too. Pins the project's
+Runs the f64 subprocess check bench.py invokes: one process-global x64
+flag means it must be a subprocess here too. Pins the project's
 central differentiability claim: d(image loss)/d(Young's modulus) through
 custom_linear_solve + RBF weights + implicit hit differentiation matches
 finite differences (BASELINE 'grad-check'; VERDICT r3 next-round #2)."""

@@ -8,17 +8,17 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.fem import corotational as co
-from fembrain_tpu.fem import integrator as integ
-from fembrain_tpu.fem.deformable import (
+from fembrain.fem import corotational as co
+from fembrain.fem import integrator as integ
+from fembrain.fem.deformable import (
     Deformable,
     couple_surface_displacements,
     haptic_ring_forces,
     node_adjacency,
 )
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.mesh import samples
+from fembrain.fem.integrator import FemState
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.mesh import samples
 
 
 def _mesh(nodes, tets, fixed=None, **kw):

@@ -1,6 +1,6 @@
 """Field-evaluation goldens: vectorized JAX evaluator vs the scalar NumPy
 oracle (a transliteration of the reference math,
-/root/reference/data/opencl/Polygonizer.cl:483-729)."""
+data/opencl/Polygonizer.cl:483-729)."""
 from pathlib import Path
 
 import numpy as np
@@ -9,13 +9,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.blob.scene import OpDef, PrimDef, SceneDef
-from fembrain_tpu.blob.types import OpType, PrimType
-from fembrain_tpu.ops import field as jfield
-from fembrain_tpu.ops import field_ref
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.blob.scene import OpDef, PrimDef, SceneDef
+from fembrain.blob.types import OpType, PrimType
+from fembrain.ops import field as jfield
+from fembrain.ops import field_ref
 
-BLOB_DIR = Path("/root/reference/data/models/blobtree")
+BLOB_DIR = MODELS_DIR / "blobtree"
 ALL_BLOBS = sorted(p.stem for p in BLOB_DIR.glob("*.blob")) if BLOB_DIR.exists() else []
 
 
@@ -156,7 +157,7 @@ def test_field_via_strategies_agree():
     (reference FieldComputer.cpp:253-330 kernel comparison)."""
     import numpy as np
 
-    from fembrain_tpu.ops.field import field, field_via
+    from fembrain.ops.field import field, field_via
 
     sc = load_blob(BLOB_DIR / "tumor.blob")
     sc.flatten_instances()

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from fembrain_tpu.graphics import (
+from fembrain.graphics import (
     CatmullRom,
     GizmoManager,
     GizmoType,
@@ -11,8 +11,8 @@ from fembrain_tpu.graphics import (
     SGNode,
     SurfaceMesh,
 )
-from fembrain_tpu.graphics.gizmo import GizmoAxis
-from fembrain_tpu.render.camera import Camera
+from fembrain.graphics.gizmo import GizmoAxis
+from fembrain.render.camera import Camera
 
 
 def _tri_mesh(name="tri"):
@@ -180,8 +180,8 @@ def test_spline_rejects_single_point():
 
 # ------------------------------------------------------------------- raster
 def test_rasterize_triangle_visible_and_depth_ordered():
-    from fembrain_tpu.graphics.raster import rasterize
-    from fembrain_tpu.graphics.scenegraph import DrawBatch
+    from fembrain.graphics.raster import rasterize
+    from fembrain.graphics.scenegraph import DrawBatch
 
     cam = Camera.make(eye=[0.0, 0.0, 5.0], target=[0.0, 0.0, 0.0])
     near = DrawBatch(
@@ -203,7 +203,7 @@ def test_rasterize_triangle_visible_and_depth_ordered():
 
 
 def test_rasterize_points_and_scenegraph_integration():
-    from fembrain_tpu.graphics.raster import rasterize
+    from fembrain.graphics.raster import rasterize
 
     sg = SceneGraph()
     sg.camera = Camera.make(eye=[0.0, 0.0, 4.0], target=[0.0, 0.0, 0.0])

@@ -3,10 +3,10 @@ corotational solver on the same Kuhn-tet mesh, multigrid preconditioner
 properties, and transfer-operator adjointness.
 
 The grid solver is the production path for the coupled frame (the
-unstructured gather/scatter matvec costs ~3 s/step at the 61k-tet
-ventricle on TPU); these tests pin its semantics to fem.integrator's,
+unstructured solver pays a gather and a scatter per matvec); these tests
+pin its semantics to fem.integrator's,
 which is itself pinned to the reference solver stack
-(/root/reference/src/deformable/PS_VolumeConservingIntegrator.cpp).
+(src/deformable/PS_VolumeConservingIntegrator.cpp).
 """
 from __future__ import annotations
 
@@ -18,14 +18,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem import grid_fem as gfm
-from fembrain_tpu.fem import integrator as integ
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.fem import grid_fem as gfm
+from fembrain.fem import integrator as integ
+from fembrain.fem.integrator import FemState
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
 
-BLOB_DIR = "/root/reference/data/models/blobtree"
+BLOB_DIR = str(MODELS_DIR / "blobtree")
 
 
 @pytest.fixture(scope="module")

@@ -9,12 +9,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem import grid_fem as gfm
-from fembrain_tpu.fem import grid_sharded as gsh
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.fem import grid_fem as gfm
+from fembrain.fem import grid_sharded as gsh
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
 
-BLOB_DIR = "/root/reference/data/models/blobtree"
+BLOB_DIR = str(MODELS_DIR / "blobtree")
 
 
 @pytest.fixture(scope="module")
@@ -123,13 +124,13 @@ def test_hybrid_preconditioner_matches_global_mg_iterations():
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    from fembrain_tpu.blob.reader import load_blob
-    from fembrain_tpu.fem import grid_fem as gfm
-    from fembrain_tpu.fem import grid_sharded as gsh
-    from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
-    from fembrain_tpu.mesh.samples import bottom_nodes_per_component
+    from fembrain.blob.reader import load_blob
+    from fembrain.fem import grid_fem as gfm
+    from fembrain.fem import grid_sharded as gsh
+    from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
+    from fembrain.mesh.samples import bottom_nodes_per_component
 
-    sc = load_blob("/root/reference/data/models/blobtree/ventricle.blob")
+    sc = load_blob(str(MODELS_DIR / "blobtree" / "ventricle.blob"))
     sc.flatten_instances()
     scene = sc.pack()
     grid = grid_for_scene(scene, cellsize=0.35)

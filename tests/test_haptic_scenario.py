@@ -12,14 +12,15 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem.avatars import AvatarProbe
-from fembrain_tpu.fem.deformable import Deformable
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.graphics.gizmo import GizmoManager, GizmoType
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.fem.avatars import AvatarProbe
+from fembrain.fem.deformable import Deformable
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.graphics.gizmo import GizmoManager, GizmoType
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
 
-SPHERE = "/root/reference/data/models/blobtree/sphere.blob"
+SPHERE = str(MODELS_DIR / "blobtree" / "sphere.blob")
 
 
 class _ProbeDriver:

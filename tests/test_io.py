@@ -5,10 +5,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from fembrain_tpu.mesh import io as mio
-from fembrain_tpu.mesh import samples
+from fembrain.assets import MODELS_DIR
+from fembrain.mesh import io as mio
+from fembrain.mesh import samples
 
-REF_VEG = Path("/root/reference/data/models/blobtree/tumor.veg")
+REF_VEG = MODELS_DIR / "blobtree" / "tumor.veg"
 
 
 def test_veg_roundtrip(tmp_path):

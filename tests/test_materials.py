@@ -6,17 +6,18 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.graphics.materials import (
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.graphics.materials import (
     FLAT,
     PHONG,
     Material,
     MaterialRegistry,
 )
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.sphere_trace import TraceParams, shade, trace
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.sphere_trace import TraceParams, shade, trace
 
-BLOB = "/root/reference/data/models/blobtree/sphere.blob"
+BLOB = str(MODELS_DIR / "blobtree" / "sphere.blob")
 
 
 def test_registry_and_ini_roundtrip(tmp_path):
@@ -56,8 +57,8 @@ def test_materials_change_tracer_shading():
 
 
 def test_materials_change_raster_shading():
-    from fembrain_tpu.graphics.raster import rasterize
-    from fembrain_tpu.graphics.scenegraph import DrawBatch
+    from fembrain.graphics.raster import rasterize
+    from fembrain.graphics.scenegraph import DrawBatch
 
     verts = np.asarray(
         [[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 1]], np.float64
@@ -80,7 +81,7 @@ def test_texture_load_sample_and_triplanar_parity(tmp_path):
     import jax.numpy as jnp
     from PIL import Image
 
-    from fembrain_tpu.graphics.materials import (
+    from fembrain.graphics.materials import (
         MaterialRegistry, Texture, triplanar_sample, triplanar_sample_jax,
     )
 
@@ -123,11 +124,11 @@ def test_textured_render_varies_spatially(tmp_path):
     import jax.numpy as jnp
     from PIL import Image
 
-    from fembrain_tpu.blob.reader import load_blob
-    from fembrain_tpu.graphics.materials import Texture
-    from fembrain_tpu.graphics.raster import rasterize
-    from fembrain_tpu.graphics.scenegraph import DrawBatch
-    from fembrain_tpu.render.sphere_trace import trace
+    from fembrain.blob.reader import load_blob
+    from fembrain.graphics.materials import Texture
+    from fembrain.graphics.raster import rasterize
+    from fembrain.graphics.scenegraph import DrawBatch
+    from fembrain.render.sphere_trace import trace
 
     tile = np.kron(
         (np.indices((8, 8)).sum(0) % 2).astype(np.uint8) * 255,
@@ -157,7 +158,7 @@ def test_textured_render_varies_spatially(tmp_path):
 
     # Traced path: textured sphere shade varies more than untextured.
     scene = load_blob(
-        "/root/reference/data/models/blobtree/sphere.blob"
+        str(MODELS_DIR / "blobtree" / "sphere.blob")
     ).pack()
     ro, rd = generate_rays(cam, 48, 36)
     ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)

@@ -6,10 +6,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from fembrain_tpu.fem.collision import AABB, CollisionDetection
-from fembrain_tpu.mesh.minc import Volume, read_volume, write_volume
-from fembrain_tpu.utils.metrics import MetricsLogger, Record
-from fembrain_tpu.utils.plots import write_gnuplot
+from fembrain.assets import MODELS_DIR
+from fembrain.fem.collision import AABB, CollisionDetection
+from fembrain.mesh.minc import Volume, read_volume, write_volume
+from fembrain.utils.metrics import MetricsLogger, Record
+from fembrain.utils.plots import write_gnuplot
 
 
 def test_collision_detection():
@@ -51,7 +52,7 @@ def test_volume_roundtrip(tmp_path):
 def test_brain_asset_loads():
     p = Path("data/models/blobtree/brain.blob")
     assert p.exists(), "run tools/make_brain.py"
-    from fembrain_tpu.blob.reader import load_blob
+    from fembrain.blob.reader import load_blob
 
     sc = load_blob(p)
     scene = sc.pack()
@@ -59,18 +60,18 @@ def test_brain_asset_loads():
     # Field is substantial at the centroid.
     import jax.numpy as jnp
 
-    from fembrain_tpu.ops.field import field
+    from fembrain.ops.field import field
 
     c = 0.5 * (scene.bbox_lo + scene.bbox_hi)
     assert float(field(scene, c[None])[0]) > 0.5
 
 
 def test_turntable_viewer(tmp_path):
-    from fembrain_tpu.blob.reader import load_blob
-    from fembrain_tpu.render.viewer import render_turntable
+    from fembrain.blob.reader import load_blob
+    from fembrain.render.viewer import render_turntable
 
     scene = load_blob(
-        "/root/reference/data/models/blobtree/sphere.blob"
+        str(MODELS_DIR / "blobtree" / "sphere.blob")
     ).pack()
     paths = render_turntable(scene, tmp_path, frames=2, width=64, height=48)
     assert len(paths) == 2 and all(p.exists() for p in paths)

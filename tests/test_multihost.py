@@ -10,11 +10,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.parallel import sharding as sh
-from fembrain_tpu.render.camera import Camera, generate_rays
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.parallel import sharding as sh
+from fembrain.render.camera import Camera, generate_rays
 
-SPHERE = "/root/reference/data/models/blobtree/sphere.blob"
+SPHERE = str(MODELS_DIR / "blobtree" / "sphere.blob")
 
 
 def _rays(n=64):
@@ -54,9 +55,8 @@ def test_train_step_on_host_chip_mesh():
 
 def test_grad_allreduce_in_compiled_step():
     """The compiled train step must contain the cross-device grad
-    reduction (XLA-inserted all-reduce). On TPU, XLA's latency-hiding
-    scheduler overlaps it with backward compute; the scene is <= ~100 KB
-    so the transfer is a single fused all-reduce either way."""
+    reduction (XLA-inserted all-reduce). The scene is <= ~100 KB, so the
+    transfer is a single fused all-reduce."""
     scene = load_blob(SPHERE).pack()
     mesh = sh.make_host_chip_mesh(2, 4)
     ro, rd = _rays(64)

@@ -2,10 +2,11 @@
 import numpy as np
 import pytest
 
-from fembrain_tpu import native
-from fembrain_tpu.fem.deformable import haptic_ring_forces, node_adjacency
-from fembrain_tpu.mesh import samples
-from fembrain_tpu.mesh.volmesh import CELL_EDGES, VolMesh
+from fembrain.assets import MODELS_DIR
+from fembrain import native
+from fembrain.fem.deformable import haptic_ring_forces, node_adjacency
+from fembrain.mesh import samples
+from fembrain.mesh.volmesh import CELL_EDGES, VolMesh
 
 lib = native.load()
 pytestmark = pytest.mark.skipif(lib is None, reason="no C++ toolchain")
@@ -59,10 +60,10 @@ def test_native_performance_large_mesh():
     """Native adjacency handles the reference's 32k-tet export quickly."""
     from pathlib import Path
 
-    veg = Path("/root/reference/data/models/blobtree/tumor.veg")
+    veg = MODELS_DIR / "blobtree" / "tumor.veg"
     if not veg.exists():
         pytest.skip("no reference asset")
-    from fembrain_tpu.mesh.io import read_veg
+    from fembrain.mesh.io import read_veg
     import time
 
     nodes, tets, _ = read_veg(veg)

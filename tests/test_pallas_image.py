@@ -1,14 +1,19 @@
 """Block-coherent image tracing (trace_pallas_image) vs the XLA tracer."""
-from pathlib import Path
-
 import numpy as np
+import pytest
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.pallas_trace import block_permutation, trace_pallas_image
-from fembrain_tpu.render.sphere_trace import trace
+import jax.numpy as jnp
 
-BLOB_DIR = Path("/root/reference/data/models/blobtree")
+from fembrain.assets import blob_path
+from fembrain.blob.reader import load_blob
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.pallas_trace import (
+    _block_layout,
+    block_permutation,
+    block_shape,
+    trace_pallas_image,
+)
+from fembrain.render.sphere_trace import trace
 
 
 def test_block_permutation_is_bijective():
@@ -20,7 +25,7 @@ def test_block_permutation_is_bijective():
 
 
 def test_blocked_image_matches_xla():
-    scene = load_blob(BLOB_DIR / "tumor.blob").pack()
+    scene = load_blob(blob_path("tumor")).pack()
     cam = Camera.orbit(25, 20, 7.0)
     w, h = 36, 20
     ro, rd = generate_rays(cam, w, h)
@@ -31,3 +36,22 @@ def test_blocked_image_matches_xla():
     assert (h1 != h2).sum() <= 2  # grazing-edge rays may flip
     m = h1 & h2
     assert np.abs(np.asarray(t1)[m] - np.asarray(t2)[m]).max() < 1e-4
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+def test_block_layout_matches_permutation(tile):
+    """The pad + transpose layout puts rays in block_permutation's order,
+    with near-square blocks of exactly one tile, and inverts exactly."""
+    bh, bw = block_shape(tile)
+    assert bh * bw == tile and bw in (bh, 2 * bh)
+    h, w = 21, 37
+    to_blocks, from_blocks, (ph, pw), n = _block_layout(h, w, tile)
+    assert n % tile == 0 and (h + ph) % bh == 0 and (w + pw) % bw == 0
+    idx = np.arange(h * w, dtype=np.float32)
+    rows = jnp.stack([jnp.asarray(idx)] * 3, -1)
+    blocked = np.asarray(to_blocks(rows, -1.0))[:, 0]
+    perm = block_permutation(h, w, bh, bw)
+    np.testing.assert_array_equal(blocked, np.where(perm >= 0, perm, -1))
+    np.testing.assert_array_equal(
+        np.asarray(from_blocks(jnp.asarray(blocked))), idx
+    )

@@ -8,17 +8,17 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from fembrain_tpu.fem import integrator as integ
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.partitioned import (
+from fembrain.fem import integrator as integ
+from fembrain.fem.integrator import FemState
+from fembrain.fem.partitioned import (
     NODE_AXIS,
     build_partitioned,
     from_partition_order,
     partitioned_timestep,
     to_partition_order,
 )
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.mesh import samples
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.mesh import samples
 
 N_DEV = 4
 
@@ -207,7 +207,7 @@ def test_rcm_fallback_on_shuffled_ids():
 def test_rcm_order_direct():
     """The RCM path itself (forced by bypassing coordinate sorts) keeps
     the adjacency invariant on an elongated mesh."""
-    from fembrain_tpu.fem.partitioned import _rcm_order, _split_ok
+    from fembrain.fem.partitioned import _rcm_order, _split_ok
 
     nodes, tets = samples.truth_cube(16, 2, 2, 0.1)
     order = _rcm_order(len(nodes), np.asarray(tets, np.int64))

@@ -10,17 +10,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.mesh import tables as T
-from fembrain_tpu.mesh.polygonize import (
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.mesh import tables as T
+from fembrain.mesh.polygonize import (
     default_caps,
     extract_tet_mesh,
     grid_for_scene,
     polygonize,
 )
-from fembrain_tpu.ops import field_ref
+from fembrain.ops import field_ref
 
-BLOB_DIR = Path("/root/reference/data/models/blobtree")
+BLOB_DIR = MODELS_DIR / "blobtree"
 R_SPHERE = float(np.sqrt(1 - 0.5 ** (1 / 3)))
 
 
@@ -156,7 +157,7 @@ def test_over_tight_caps_raise():
     mesh (round-1 VERDICT weak #7)."""
     import pytest
 
-    from fembrain_tpu.mesh.polygonize import (
+    from fembrain.mesh.polygonize import (
         CapacityError,
         check_capacity,
         extract_tet_mesh,
@@ -173,7 +174,7 @@ def test_over_tight_caps_raise():
     with pytest.raises(CapacityError):
         check_capacity(tm)
     # Generous caps pass.
-    from fembrain_tpu.mesh.polygonize import default_caps
+    from fembrain.mesh.polygonize import default_caps
 
     vcap, tcap = default_caps(grid)
     ok = polygonize(scene, grid, vcap, tcap)

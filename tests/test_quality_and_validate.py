@@ -5,15 +5,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.blob.scene import OpDef, PrimDef, SceneDef
-from fembrain_tpu.blob.types import OpType, PrimType
-from fembrain_tpu.mesh import samples
-from fembrain_tpu.mesh.polygonize import default_caps, grid_for_scene, polygonize
-from fembrain_tpu.mesh.quality import tet_quality, triangle_quality
-from fembrain_tpu.ops import field as jfield
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.blob.scene import OpDef, PrimDef, SceneDef
+from fembrain.blob.types import OpType, PrimType
+from fembrain.mesh import samples
+from fembrain.mesh.polygonize import default_caps, grid_for_scene, polygonize
+from fembrain.mesh.quality import tet_quality, triangle_quality
+from fembrain.ops import field as jfield
 
-BLOB = "/root/reference/data/models/blobtree"
+BLOB = str(MODELS_DIR / "blobtree")
 
 
 def test_scene_validate():

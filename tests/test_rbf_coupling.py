@@ -6,13 +6,14 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from fembrain_tpu.app import SimulationApp
-from fembrain_tpu.fem.deformable import couple_surface_displacements
-from fembrain_tpu.fem.integrator import FemState
+from fembrain.assets import MODELS_DIR
+from fembrain.app import SimulationApp
+from fembrain.fem.deformable import couple_surface_displacements
+from fembrain.fem.integrator import FemState
 
 
 def test_rbf_tracks_deformed_surface(tmp_path):
-    app = SimulationApp("/root/reference/data/models/sphere.sim",
+    app = SimulationApp(str(MODELS_DIR / "sphere.sim"),
                         cellsize=0.3)
     n = app.fem.n_nodes
     # Synthetic uniform sag: every free node down by 0.15 (larger than

@@ -10,19 +10,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.blob.scene import OpDef, PrimDef, SceneDef
-from fembrain_tpu.blob.types import OpType, PrimType
-from fembrain_tpu.ops import field_ref
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.sphere_trace import (
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.blob.scene import OpDef, PrimDef, SceneDef
+from fembrain.blob.types import OpType, PrimType
+from fembrain.ops import field_ref
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.sphere_trace import (
     TraceParams,
     depth_image,
     render_image,
     trace,
 )
 
-BLOB_DIR = Path("/root/reference/data/models/blobtree")
+BLOB_DIR = MODELS_DIR / "blobtree"
 R_SPHERE = float(np.sqrt(1 - 0.5 ** (1 / 3)))  # field (1-r^2)^3 = 0.5
 
 

@@ -6,11 +6,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.fem import rigid
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.rigid import RigidBoxState
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.mesh import samples
+from fembrain.fem import rigid
+from fembrain.fem.integrator import FemState
+from fembrain.fem.rigid import RigidBoxState
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.mesh import samples
 
 HE = np.array([0.2, 0.2, 0.2])
 
@@ -69,7 +69,7 @@ def test_free_rotation_preserves_angular_velocity():
     its angular velocity; the quaternion stays unit."""
     import jax.numpy as jnp
 
-    from fembrain_tpu.fem.rigid import RigidBody6State, rigid_step_6dof
+    from fembrain.fem.rigid import RigidBody6State, rigid_step_6dof
 
     st = RigidBody6State.at_rest((0.0, 5.0, 0.0), omega=(0.0, 2.0, 0.0))
     for _ in range(50):
@@ -91,7 +91,7 @@ def test_tumbling_box_settles_on_floor():
     import jax
     import jax.numpy as jnp
 
-    from fembrain_tpu.fem.rigid import (
+    from fembrain.fem.rigid import (
         RigidBody6State, quat_to_mat, rigid_step_6dof,
     )
 
@@ -126,7 +126,7 @@ def test_offcenter_tissue_contact_spins_box():
 
     import jax.numpy as jnp
 
-    from fembrain_tpu.fem.rigid import (
+    from fembrain.fem.rigid import (
         RigidBody6State, box_tissue_forces_6dof,
     )
 

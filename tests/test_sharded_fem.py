@@ -5,11 +5,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.fem import integrator as integ
-from fembrain_tpu.fem import sharded
-from fembrain_tpu.fem.integrator import FemState
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.mesh import samples
+from fembrain.fem import integrator as integ
+from fembrain.fem import sharded
+from fembrain.fem.integrator import FemState
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.mesh import samples
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")

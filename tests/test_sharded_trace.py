@@ -2,25 +2,23 @@
 single-device kernel bit-for-bit (VERDICT r2 #2 — the distribution layer
 has to carry the kernel that holds the perf numbers, not the XLA tracer).
 Runs on the 8-virtual-device CPU mesh in interpret mode."""
-from pathlib import Path
-
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.parallel import sharding as sh
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.pallas_trace import (
+from fembrain.assets import blob_path
+from fembrain.blob.reader import load_blob
+from fembrain.parallel import sharding as sh
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.pallas_trace import (
     trace_pallas,
     trace_pallas_image,
     trace_pallas_image_sharded,
     trace_pallas_sharded,
 )
 
-BLOB_DIR = Path("/root/reference/data/models/blobtree")
 TILE = 256  # small tile so 8 shards see several tiles each
 
 
@@ -31,7 +29,7 @@ def _rays(zoom=7.0, w=40, h=26):
 
 
 def test_sharded_matches_single_device():
-    scene = load_blob(BLOB_DIR / "tumor.blob").pack()
+    scene = load_blob(blob_path("tumor")).pack()
     ro, rd = _rays()
     mesh = sh.make_mesh(8)
     t1, h1 = trace_pallas(scene, ro, rd, interpret=True, tile=TILE)
@@ -46,7 +44,7 @@ def test_sharded_matches_single_device():
 
 
 def test_sharded_image_matches_single_device():
-    scene = load_blob(BLOB_DIR / "tumor.blob").pack()
+    scene = load_blob(blob_path("tumor")).pack()
     h, w = 24, 40
     ro, rd = _rays(7.0, w, h)
     mesh = sh.make_mesh(8)
@@ -62,7 +60,7 @@ def test_sharded_image_matches_single_device():
 def test_sharded_host_chip_mesh():
     """Rays shard jointly over the 2-D ('host','chip') mesh — the
     multi-host code path of SURVEY §5.8."""
-    scene = load_blob(BLOB_DIR / "sphere.blob").pack()
+    scene = load_blob(blob_path("sphere")).pack()
     ro, rd = _rays(2.0)
     hc = sh.make_host_chip_mesh(2, 4)
     t1, h1 = trace_pallas(scene, ro, rd, interpret=True, tile=TILE)
@@ -74,22 +72,23 @@ def test_sharded_host_chip_mesh():
 
 
 def test_sharded_deformed_disp_matches():
-    """The deformed (RBF displacement) kernel path shards identically:
-    disp spec replicated, rays split."""
-    from fembrain_tpu.render.deformed import build_disp_interp, disp_weights
+    """The deformed (Wendland displacement) kernel path shards
+    identically: disp spec replicated, rays split."""
+    from fembrain.render.deformed import (
+        build_disp_interp,
+        disp_weights,
+        wendland_pallas_spec,
+    )
 
-    scene = load_blob(BLOB_DIR / "sphere.blob").pack()
+    scene = load_blob(blob_path("sphere")).pack()
     ro, rd = _rays(2.0, 32, 16)
     rng = np.random.default_rng(0)
     nodes = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
-    interp = build_disp_interp(nodes, n_centers=32)
+    interp = build_disp_interp(nodes, n_centers=64, kernel="wendland")
     q = jnp.asarray(
         0.02 * np.sin(nodes * 3.0), jnp.float32
     )
-    w = disp_weights(interp, q)
-    shrink = jnp.asarray(0.9, jnp.float32)
-    slack = jnp.asarray(0.05, jnp.float32)
-    disp = (interp.centers, w, shrink, slack, 0.1, 2)
+    disp = wendland_pallas_spec(interp, disp_weights(interp, q))
     mesh = sh.make_mesh(8)
     t1, h1 = trace_pallas(scene, ro, rd, interpret=True, tile=TILE,
                           disp=disp)

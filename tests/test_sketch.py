@@ -4,21 +4,22 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from fembrain_tpu.blob.kdtree import KDTree
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.blob.sketch import (
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.kdtree import KDTree
+from fembrain.blob.reader import load_blob
+from fembrain.blob.sketch import (
     SketchAddOp,
     SketchAddPrim,
     SketchMachine,
     SketchTranslate,
 )
-from fembrain_tpu.blob.types import OpType, PrimType
-from fembrain_tpu.blob.writer import save_blob
-from fembrain_tpu.ops import field as jfield
-from fembrain_tpu.ops import field_ref
-from fembrain_tpu.ops.rbf import FastRBF, off_surface_samples
+from fembrain.blob.types import OpType, PrimType
+from fembrain.blob.writer import save_blob
+from fembrain.ops import field as jfield
+from fembrain.ops import field_ref
+from fembrain.ops.rbf import FastRBF, off_surface_samples
 
-BLOB_DIR = Path("/root/reference/data/models/blobtree")
+BLOB_DIR = MODELS_DIR / "blobtree"
 
 
 def test_blob_writer_roundtrip(tmp_path):
@@ -128,7 +129,7 @@ def test_kdtree_sah_matches_bruteforce_and_beats_median():
     on a clustered scene, test fewer boxes per pick than median split."""
     import numpy as np
 
-    from fembrain_tpu.blob.kdtree import KDTree, _ray_box_t
+    from fembrain.blob.kdtree import KDTree, _ray_box_t
 
     rng = np.random.default_rng(3)
     # Clustered boxes: two dense clumps + sparse outliers (the layout

@@ -13,10 +13,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.ops.field import field
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.ops.field import field
 
-BLOB_DIR = Path("/root/reference/data/models/blobtree")
+BLOB_DIR = MODELS_DIR / "blobtree"
 
 SCENES = ["sphere", "tumor", "ventricle", "CylinderWithHoles", "SphereCube",
           "TwoTriangles", "disk", "cake", "testDisc2", "spheredif"]

@@ -2,7 +2,7 @@
 construction (native edge kernel), vectorized invariants, and an
 end-to-end cut of the app's own ventricle mesh (61k tets) in seconds —
 the reference's VolMesh is C++ and handles this scale natively
-(/root/reference/src/deformable/VolMesh.cpp)."""
+(src/deformable/VolMesh.cpp)."""
 from __future__ import annotations
 
 import time
@@ -10,14 +10,15 @@ import time
 import numpy as np
 import pytest
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.fem.cutting import CuttableMesh
-from fembrain_tpu.fem.tetmesh import build_fem_mesh
-from fembrain_tpu.mesh import samples
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
-from fembrain_tpu.mesh.volmesh import VolMesh
+from fembrain.assets import MODELS_DIR
+from fembrain.blob.reader import load_blob
+from fembrain.fem.cutting import CuttableMesh
+from fembrain.fem.tetmesh import build_fem_mesh
+from fembrain.mesh import samples
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.mesh.volmesh import VolMesh
 
-BLOB_DIR = "/root/reference/data/models/blobtree"
+BLOB_DIR = str(MODELS_DIR / "blobtree")
 
 
 def test_bulk_matches_loop_construction():

@@ -12,10 +12,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fembrain_tpu.blob.reader import load_blob
-from fembrain_tpu.mesh.polygonize import extract_tet_mesh, grid_for_scene
-from fembrain_tpu.render.camera import Camera, generate_rays
-from fembrain_tpu.render.deformed import (
+from fembrain.assets import blob_path
+from fembrain.blob.reader import load_blob
+from fembrain.mesh.polygonize import extract_tet_mesh, grid_for_scene
+from fembrain.render.camera import Camera, generate_rays
+from fembrain.render.deformed import (
     build_disp_interp,
     disp_weights,
     displacement_grid,
@@ -27,7 +28,7 @@ from fembrain_tpu.render.deformed import (
     wendland_pallas_spec,
 )
 
-SPHERE = "/root/reference/data/models/blobtree/sphere.blob"
+SPHERE = blob_path("sphere")
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +147,7 @@ def test_error_driven_refinement_beats_uniform_fps(setup):
     with a localized deformation (contact dimple), error-driven extra
     centers cut the worst-case fit error by far more than 2x at EQUAL
     center count vs uniform farthest-point sampling."""
-    from fembrain_tpu.render.deformed import refine_disp_interp
+    from fembrain.render.deformed import refine_disp_interp
 
     # Finer mesh than the module fixture (refinement needs node count
     # well above the center count).
@@ -200,7 +201,7 @@ def test_certified_bounds_dominate_sampled_and_trace_agrees(setup):
     assert float(jnp.min(s_cert.bg - s_samp.bg)) >= -1e-6
     assert float(s_cert.max_disp) >= float(s_samp.max_disp) - 1e-6
 
-    from fembrain_tpu.render.pallas_trace import trace_pallas
+    from fembrain.render.pallas_trace import trace_pallas
 
     t1, h1 = trace_pallas(scene, ro, rd, interpret=True, disp=s_samp)
     t2, h2 = trace_pallas(scene, ro, rd, interpret=True, disp=s_cert)

@@ -15,13 +15,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def main(argv: list[str]) -> int:
-    blob_dir = Path(
-        argv[1] if len(argv) > 1
-        else "/root/reference/data/models/blobtree"
-    )
-    from fembrain_tpu.blob.reader import load_blob
-    from fembrain_tpu.blob.types import OpType, PrimType
+    from fembrain.assets import MODELS_DIR
+    from fembrain.blob.reader import load_blob
+    from fembrain.blob.types import OpType, PrimType
 
+    blob_dir = Path(argv[1]) if len(argv) > 1 else MODELS_DIR / "blobtree"
     prim_total: Counter = Counter()
     op_total: Counter = Counter()
     rows = []

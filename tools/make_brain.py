@@ -16,11 +16,11 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from fembrain_tpu.blob.scene import OpDef, PrimDef, SceneDef
-from fembrain_tpu.blob.types import OpType, PrimType
-from fembrain_tpu.blob.writer import save_blob
-from fembrain_tpu.utils.affine import compose_trs
-from fembrain_tpu.utils.config import SimConfig
+from fembrain.blob.scene import OpDef, PrimDef, SceneDef
+from fembrain.blob.types import OpType, PrimType
+from fembrain.blob.writer import save_blob
+from fembrain.utils.affine import compose_trs
+from fembrain.utils.config import SimConfig
 
 
 def make_brain(seed: int = 7) -> SceneDef:
